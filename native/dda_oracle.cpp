@@ -2,8 +2,8 @@
 // 3D-DDA march (Amanatides–Woo: delta_t = fabs(1/dir), per-axis
 // intersection_t, step the smallest-t axis — SURVEY.md §4.3, the hot loop
 // of the reference's kernels/ray_caster_kernel.cl [K]). This is the
-// "deeper oracle" tier of SURVEY.md §5: the OpenCL original cannot run on
-// a TPU host, so forward-pass parity against the reference ALGORITHM is
+// "deeper oracle" tier of SURVEY.md §5: the OpenCL original cannot run
+// here, so forward-pass parity against the reference ALGORITHM is
 // checked against this native reimplementation, which mirrors
 // vxtpu/render/dda.py + kernel_ref.py constant-for-constant (ENTRY_EPS,
 // safe_inverse clamp, tie-break-to-lowest-axis).

@@ -1,10 +1,10 @@
 // Async frame sink: a native worker pool that encodes RGB8 frames to PNG
 // and writes them to disk off the Python render loop.
 //
-// This is the TPU-native rebuild of the reference's display/output tail
+// This is the rebuild of the reference's display/output tail
 // (SURVEY.md §4.2: window.draw(sprite of shared texture) at the end of every
 // frame — host-side presentation work overlapped with the next frame's GPU
-// dispatch). A headless TPU host has no window; the equivalent runtime
+// dispatch). A headless accelerator host has no window; the equivalent runtime
 // component is frame ENCODE+IO, and doing it on Python's thread would
 // serialize disk latency into the frame loop. Here: a bounded job queue +
 // std::thread workers; submission copies the frame and returns immediately,

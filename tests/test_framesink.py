@@ -56,13 +56,17 @@ def test_uint8_passthrough(tmp_path):
     np.testing.assert_array_equal(np.asarray(Image.open(p)), img)
 
 
-def test_animate_uses_native_sink(tmp_path):
+def test_animate_uses_native_sink(tmp_path, monkeypatch):
     """CLI animate wiring: frames written through the native sink."""
     from vxtpu.app.run import main
+
+    # the CLI keeps no compile cache in the checkout when the variable is
+    # set (engine/platform.compilation_cache_dir)
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "cache"))
 
     out = str(tmp_path / "anim")
     rc = main(["animate", "--config", "c1_64_flat", "--dims", "16",
                "--height", "16", "--width", "16", "--frames", "3",
-               "--out", out])
+               "--kernel", "xla", "--out", out])
     assert rc == 0
     assert sorted(os.listdir(out)) == [f"frame_{i:04d}.png" for i in range(3)]

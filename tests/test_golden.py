@@ -3,7 +3,8 @@ author's render-and-eyeball validation loop (SURVEY.md §5): checked-in PNGs
 with tolerance catch silent shading/march regressions.
 
 Goldens live in tests/golden/ at 64x64, rendered by the XLA fast path on CPU
-(which is itself oracle-parity-locked). Regenerate deliberately with
+(which is itself oracle-parity-locked); the Triton march must reproduce
+them too. Regenerate deliberately with
 ``python tests/test_golden.py regen`` after an intentional visual change.
 """
 
@@ -30,66 +31,50 @@ def _scene():
     return g, s, cam, lights
 
 
-def _render(name):
+def _render(name, kernel="xla"):
+    """The golden frame ``name`` through the XLA march (pyramid or plain
+    DDA, as the golden was made) or through the Triton march (interpret
+    mode; it reads a distance field)."""
+    import functools
+
+    from vxtpu.render.kernel_triton import make_march_triton
     from vxtpu.render.kernel_xla import make_march_xla
     from vxtpu.render.pipeline import render_image
     from vxtpu.render.settings import RenderSettings
+    from vxtpu.world import distfield
     from vxtpu.world.pyramid import build_pyramid
 
     g, s, cam, lights = _scene()
-    if name == "terrain_flat":
-        return render_image(make_march_xla, g, cam, lights,
-                            RenderSettings(shading="flat"), 64, 64, None)
-    if name == "terrain_lambert":
-        return render_image(make_march_xla, g, cam, lights,
-                            RenderSettings(shading="lambert"), 64, 64, None)
-    if name == "terrain_full":
-        pyr = build_pyramid(g.occupancy, 2)
-        return render_image(make_march_xla, g, cam, lights,
-                            RenderSettings.full(pyramid_levels=2), 64, 64, pyr)
-    if name == "sphere_lambert":
-        return render_image(make_march_xla, s, cam, lights,
-                            RenderSettings(shading="lambert"), 64, 64, None)
-    if name.startswith("pallas2_"):
-        # the FLAGSHIP kernel's own goldens (VERDICT r3 weak #8): fused
-        # in-kernel march+shade via render/fused.py, interpret mode on CPU
-        # — catches shading-path regressions in the kernel actually
-        # shipped, not just the XLA pipeline. 64^3 grid: the morton table
-        # needs a power-of-two cube.
-        from vxtpu.render.fused import render_frame_fused
-        from vxtpu.world import procgen
-        from vxtpu.world.packed import (build_material_morton,
-                                        build_packed_morton)
-
-        pdims = (64, 64, 64)
-        gp = procgen.terrain(pdims, seed=11)
-        accel = build_packed_morton(gp.occupancy)
-        mats = build_material_morton(gp.occupancy)
-        from vxtpu.camera.camera import Camera
-        from vxtpu.world.lights import Lights
-
-        pcam = Camera.make(pos=(-40.0, 32.0, 70.0),
-                           fov_y_deg=55.0).look_at((32.0, 32.0, 19.0))
-        plights = Lights.single((11.0, -20.0, 93.0), intensity=2.0)
-        st = (RenderSettings(shading="lambert")
-              if name == "pallas2_lambert"
-              else RenderSettings(shading="full", shadows=True, fog=True))
-        return render_frame_fused(accel, mats, pdims, pcam, plights, st,
-                                  64, 64, interpret=True)
-    raise KeyError(name)
+    grid = s if name == "sphere_lambert" else g
+    settings = {
+        "terrain_flat": RenderSettings(shading="flat"),
+        "terrain_lambert": RenderSettings(shading="lambert"),
+        "terrain_full": RenderSettings.full(pyramid_levels=2),
+        "sphere_lambert": RenderSettings(shading="lambert"),
+    }[name]
+    if kernel == "triton":
+        factory = functools.partial(make_march_triton, interpret=True,
+                                    image_shape=(64, 64))
+        accel = distfield.build(grid.occupancy)
+    else:
+        factory = make_march_xla
+        accel = (build_pyramid(grid.occupancy, 2)
+                 if name == "terrain_full" else None)
+    return render_image(factory, grid, cam, lights, settings, 64, 64, accel)
 
 
 GOLDENS = ["terrain_flat", "terrain_lambert", "terrain_full",
-           "sphere_lambert", "pallas2_lambert", "pallas2_full"]
+           "sphere_lambert"]
 
 
+@pytest.mark.parametrize("kernel", ["xla", "triton"])
 @pytest.mark.parametrize("name", GOLDENS)
-def test_golden(name):
+def test_golden(name, kernel):
     from PIL import Image
 
     path = os.path.join(GOLDEN_DIR, f"{name}.png")
     want = np.asarray(Image.open(path)).astype(np.float32) / 255.0
-    got = np.clip(np.asarray(_render(name)), 0.0, 1.0)
+    got = np.clip(np.asarray(_render(name, kernel)), 0.0, 1.0)
     # quantization allows 1/255 everywhere; permit a few boundary pixels to
     # move (fp-grazing rays), but no broad drift
     diff = np.abs(got - want).max(axis=-1)

@@ -1,7 +1,6 @@
 """Multi-view inverse rendering (BASELINE config 4: "optimize voxel
 colors/densities from target imageS"): recover a known scene from 8 orbit
-views to a PSNR threshold — the recovery demo VERDICT flagged as missing
-(single-view fitting is ill-posed)."""
+views to a PSNR threshold (single-view fitting is ill-posed)."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -2,7 +2,7 @@
 checkpoint must continue the EXACT optimizer trajectory — adam moments
 included — so an interrupted run converges identically to an uninterrupted
 one. This is the test that makes "--resume" a capability rather than a
-flag (VERDICT r2 weak #4)."""
+flag."""
 
 import dataclasses
 

@@ -149,61 +149,3 @@ def test_bucketed_psum_matches_monolithic():
         np.testing.assert_allclose(np.array(a), np.array(b),
                                    rtol=1e-4, atol=1e-6)
 
-
-def test_sharded_fused_pallas_render_parity():
-    """The FLAGSHIP fused Pallas kernel (march + in-kernel shade + shadow)
-    under shard_map: sharded == single-device on the 8-virtual-device CPU
-    mesh (interpret mode) — the BASELINE north-star composition 'rays are
-    tiled and sharded across chips ... Pallas forward kernel'."""
-    from vxtpu.engine.sharding import render_frame_fused_sharded
-    from vxtpu.render.fused import render_frame_fused
-    from vxtpu.render.settings import MarchTuning
-    from vxtpu.world.packed import build_material_morton, build_packed_morton
-
-    D = 32
-    g = procgen.terrain((D, D, D), seed=5)
-    accel = build_packed_morton(g.occupancy)
-    mats = build_material_morton(g.occupancy)
-    cam = Camera.make(pos=(-20.0, 16.0, 36.0),
-                      fov_y_deg=55.0).look_at((16.0, 16.0, 8.0))
-    L = Lights.single((5.0, -10.0, 45.0), intensity=2.0)
-    s = RenderSettings(shading="full", shadows=True, fog=True,
-                       tuning=MarchTuning(window=64))
-    a = np.array(render_frame_fused(accel, mats, (D, D, D), cam, L, s,
-                                    32, 64, interpret=True))
-    b = np.array(render_frame_fused_sharded(
-        accel, mats, (D, D, D), cam, L, s, 32, 64, make_mesh(),
-        interpret=True))
-    assert np.allclose(a, b, atol=1e-6)
-
-
-def test_sharded_field_kernel_train_step_descends():
-    """The Pallas field-sampling kernels (render/kernel_sample.py) inside
-    the shard_map train step: loss descends and grads psum correctly on
-    the CPU mesh."""
-    from vxtpu.engine.sharding import render_soft_image_sharded
-    from vxtpu.render.soft_pallas import MortonSoftGrid
-
-    mesh = make_mesh()
-    D = 16
-    grid = procgen.shell_sphere((D, D, D))
-    truth = SoftGrid.from_hard(grid, sigma_solid=20.0)
-    cam = Camera.make(pos=(-10.0, 8.0, 8.0)).look_at((8.0, 8.0, 8.0))
-    H = W = 8          # tiny: 8 interpret-mode kernel pairs per step
-    S = 4
-    s = RenderSettings(shading="lambert")
-    L = Lights.single((0.0, 8.0, 30.0), intensity=2.0)
-    target = render_soft_image_sharded(truth, cam, s, H, W, S, mesh,
-                                       lights=L).reshape(-1, 3)
-    o_c, d_c = camera_frame_rays(cam, H, W)
-    init_fn, step_fn = make_sharded_train_step(
-        s, S, mesh, optimize_camera=False, lights=L, field_kernel=True,
-        field_window=16, field_interpret=True)
-    msoft = MortonSoftGrid.from_soft(SoftGrid.zeros((D, D, D)))
-    opt_state = init_fn(msoft, cam)
-    losses = []
-    for _ in range(3):
-        msoft, cam, opt_state, loss = step_fn(msoft, cam, opt_state,
-                                              o_c, d_c, target)
-        losses.append(float(loss))
-    assert losses[-1] < losses[0] * 0.95

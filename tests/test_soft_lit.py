@@ -1,4 +1,4 @@
-"""Lit soft mode (VERDICT r2 missing #6): density-gradient-normal lambert /
+"""Lit soft mode: density-gradient-normal lambert /
 Blinn-Phong shading of the volumetric renderer, so config 4/5 optimization
 targets resemble the hard render ladder (configs 2-3) — plus its custom-VJP
 parity and the loud scope-cut warnings."""

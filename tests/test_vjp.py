@@ -1,6 +1,7 @@
-"""The §5 gradient tier VERDICT flagged as missing: custom-VJP vs
-autodiff-through-the-reference-soft-renderer allclose, plus the SURVEY §6
-determinism guarantee (same seed -> bitwise-same grads)."""
+"""The §5 gradient tier: custom-VJP vs autodiff-through-the-reference-soft-
+renderer allclose, plus the SURVEY §6 determinism guarantee (same seed ->
+bitwise-same grads; on the CPU — on the GPU the scatter-add runs on atomics,
+see README "Determinism")."""
 
 import jax
 import jax.numpy as jnp

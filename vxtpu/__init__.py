@@ -1,17 +1,18 @@
-"""vxtpu — a TPU-native differentiable voxel ray-marching framework.
+"""vxtpu — a differentiable voxel ray-marching framework in JAX.
 
 A from-scratch JAX/XLA/Pallas rebuild of the *capabilities* of the reference
 renderer ``MitchellHansen/voxel-raycaster`` (a C++/OpenCL real-time voxel
 ray-caster; see /root/repo/SURVEY.md for the full component inventory).
-This is not a port: the per-pixel OpenCL march becomes a masked, tiled,
-vectorized march over ray batches; the sparse-voxel-octree acceleration
-structure becomes a dense occupancy pyramid; the interactive SFML loop
+This is not a port: the per-pixel OpenCL march becomes a per-ray Pallas
+kernel over blocks of rays (plus a masked lock-step XLA march); the
+sparse-voxel-octree acceleration structure becomes a dense occupancy
+pyramid or a Chebyshev distance field; the interactive SFML loop
 becomes scripted camera paths and jitted frame steps; and — beyond the
 reference — rendering is differentiable (soft volumetric mode with a custom
-VJP) and distributed (ray tiles sharded over a TPU mesh via ``shard_map``).
+VJP) and distributed (rays sharded over a device mesh via ``shard_map``).
 
 Layer map (reference -> here, per SURVEY.md section 2):
-  OpenCL kernel        -> render/ (kernel_ref oracle, kernel_xla, kernel_pallas)
+  OpenCL kernel        -> render/ (kernel_ref oracle, kernel_triton, kernel_xla)
   CLCaster harness     -> engine/ (platform, renderer, sharding)
   Old_Map / Octree     -> world/ (grid, pyramid, procgen)
   Camera / viewport    -> camera/ (camera, rays, paths)

@@ -2,7 +2,7 @@
 
 The reference's camera moves via input events + impulse/friction physics
 (SURVEY.md §3 C7: ``add_relative_impulse``, ``movement *= friction``).
-Headless TPU rendering replaces interactivity with deterministic paths —
+Headless rendering replaces interactivity with deterministic paths —
 including an impulse/friction *simulation* so the reference's motion feel
 is reproducible as a capability, driven by a scripted impulse schedule
 instead of a keyboard.

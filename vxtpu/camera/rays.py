@@ -2,8 +2,8 @@
 
 The reference precomputes a per-pixel "viewport matrix" of ray directions on
 the host, re-uploading on resize, and rotates it by the camera angles in the
-kernel (SURVEY.md §3 C8). On TPU the whole computation is a handful of fused
-VPU ops per pixel, so we just generate rays inside the jitted step — no
+kernel (SURVEY.md §3 C8). Here the whole computation is a handful of fused
+elementwise ops per pixel, so we just generate rays inside the jitted step — no
 caching, no host->device churn, and the rays stay differentiable w.r.t. the
 camera pose.
 

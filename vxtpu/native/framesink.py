@@ -1,7 +1,7 @@
 """ctypes binding for the native async frame sink (native/framesink.cpp):
 a C++ worker pool that PNG-encodes and writes frames off the Python render
 loop — the runtime-native rebuild of the reference's per-frame present/blit
-tail (SURVEY.md §4.2), where disk IO replaces the window on a headless TPU
+tail (SURVEY.md §4.2), where disk IO replaces the window on a headless
 host. Built on first use with g++ (same pattern as vxtpu/native/oracle.py;
 pybind11 is not in this image).
 """

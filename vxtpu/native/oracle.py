@@ -6,7 +6,7 @@ with g++ and cached next to the source (keyed by source mtime).
 
 Use: tests cross-check kernel_ref (the JAX oracle) against this independent
 implementation, closing the loop "fast paths == JAX oracle == reference
-algorithm". It is NOT a runtime render path — TPU compute stays in
+algorithm". It is NOT a runtime render path — device compute stays in
 XLA/Pallas; native code here plays the same role the reference's
 Software_Caster played for its OpenCL kernel (SURVEY.md §3 C6).
 """

@@ -24,7 +24,7 @@ class MetricsSink:
 
     Multi-host: BOTH the echo and the file write are gated to process 0
     unless ``all_hosts`` is set — N hosts appending to one shared JSONL
-    path would interleave lines (VERDICT r4 weak #6). Set all_hosts=True
+    path would interleave lines. Set all_hosts=True
     only with per-host paths (e.g. suffix jax.process_index())."""
 
     path: str | None = None

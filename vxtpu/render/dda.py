@@ -1,9 +1,10 @@
 """Shared 3D-DDA primitives (Amanatides & Woo traversal) used identically by
-the per-ray oracle (render/kernel_ref), the batched XLA fast path
-(render/kernel_xla) and the Pallas kernel — so all paths compute the same
+the per-ray oracle (render/kernel_ref) and the batched XLA march
+(render/kernel_xla); the Triton march (render/kernel_triton) restates them
+per axis — so all paths compute the same
 quantities and parity is bit-honest.
 
-This is the TPU-native rebuild of the reference kernel's traversal setup
+This is the rebuild of the reference kernel's traversal setup
 (SURVEY.md §4.3: ``delta_t = fabs(1/dir)``, per-axis ``intersection_t``,
 step the axis with smallest t). Everything here is shape-polymorphic over a
 leading batch: pass [3] arrays for one ray or [..., 3] for a batch.

@@ -1,10 +1,11 @@
 """The oracle: per-ray ``lax.while_loop`` 3D-DDA march, vmapped over the ray
-batch. Runs on CPU or TPU. Obviously-correct by construction — one ray, one
-loop, the textbook Amanatides-Woo recurrence — and therefore the parity
-target every fast path (kernel_xla, kernel_pallas) must allclose against
+batch. Runs on the CPU or the GPU. Obviously-correct by construction — one
+ray, one loop, the textbook Amanatides-Woo recurrence — and therefore the
+parity target every fast path (kernel_triton, kernel_xla) must allclose
+against
 (BASELINE.json config 1: "CPU jax.lax.while_loop reference").
 
-This is also the TPU-native stand-in for the reference's ``Software_Caster``
+This is also the stand-in for the reference's ``Software_Caster``
 CPU fallback (SURVEY.md §3 C6): same march, slow but trustworthy.
 """
 

@@ -1,15 +1,11 @@
 """Wavefront march: active-ray compaction between march phases.
 
 The reference's OpenCL kernel retires each pixel's work-item the moment its
-ray terminates (SURVEY.md §4.3) — a GPU gets divergence handling for free
-from its warp scheduler. The batched XLA march (kernel_xla.py) instead pays
-EVERY ray's gather lane on EVERY step until the globally-slowest ray
-finishes: at the 512³/1080p flagship, step counts are p50=0 / p99=24 /
-worst≈90 (SURVEY.md §7.1), so >95% of gather traffic is dead lanes, and the
-device cost model (tools/microbench.py, re-measured this round) says gather
-cost is ~8.5 ns per *fetched lane* while loop iterations are ~100 µs
-regardless of width. The TPU-native answer to divergence is therefore
-COMPACTION, not masking alone:
+ray terminates (SURVEY.md §4.3). The batched XLA march (kernel_xla.py)
+instead pays EVERY ray's gather lane on EVERY step until the globally-
+slowest ray finishes; when most rays finish early, most of that gather
+traffic is dead lanes. This march answers divergence with COMPACTION, not
+masking alone (render/kernel_triton.py answers it with a per-ray loop):
 
   round r:  pos   = cumsum(active) - 1                 (full width, no gather)
             slots = first B_r active rays              (scatter of ray ids)
@@ -21,8 +17,8 @@ pack1 (flags+dist+steps bitfield), pack2 (voxel coords), t_cur (f32). The
 DDA t_next invariant is recomputed from the voxel at buffer load — it is a
 pure function of (v, o, d), so compaction carries no float history. The
 entry-voxel occupancy fetch happens *inside* the buffer (a per-ray "fresh"
-bit makes the first buffered step fetch-only), so invalid rays (~50% at the
-flagship camera: they miss the grid AABB) never touch memory at all.
+bit makes the first buffered step fetch-only), so invalid rays (those that
+miss the grid AABB) never touch memory at all.
 
 Semantics are identical to kernel_xla.march_xla_df / kernel_ref (the same
 dda.py primitives, the same jump rule, the same progress guards) —
@@ -66,14 +62,13 @@ def _default_schedule(n: int, max_steps: int, valid_count: int | None = None):
     schedule — the trailing while_loop drains whatever is left.
 
     Round 1 is always the FULL-WIDTH IDENTITY round (B = n): marching every
-    ray in place for the first 8 steps is cheaper than compacting at full
-    width, because the compaction io (~10 gathers + 3 scatters + cumsum,
-    measured ~116 ms at 2M rays — tools/probe_wf2_out.json) exceeds the
+    ray in place for the first 8 steps avoids a full-width compaction
+    (~10 gathers + 3 scatters + cumsum) whose io can exceed the
     table-gather cost of the dead lanes it would remove. Later rounds
-    compact to buffers sized from the measured survivor curve of the
-    flagship primary-ray distribution (v/5.6 alive after 8 steps, v/56
-    after 24 — tools/probe_wf_out.json round_counts), scaled by
-    valid_count when the caller provides it (count_valid_rays)."""
+    compact to buffers sized from a survivor curve of a 512³/1080p
+    primary-ray distribution (v/5.6 alive after 8 steps, v/56 after 24),
+    scaled by valid_count when the caller provides it
+    (count_valid_rays)."""
     v = n if valid_count is None else max(int(valid_count), 1)
     sched = [(n, min(8, max_steps))]
     if v >= 8192 and max_steps > 8:
@@ -152,8 +147,7 @@ def march_wavefront(o: jax.Array, d: jax.Array, df_flat: jax.Array,
         if identity:
             # ---- identity round: the buffer covers EVERY ray, so the
             # compaction machinery (full-width cumsum, ~10 B-wide state
-            # gathers, 3 scatters — measured ~116 ms/round at flagship
-            # width, tools/probe_wf2_out.json) degenerates to marching the
+            # gathers, 3 scatters) degenerates to marching the
             # packed state IN PLACE. This is the default round 0: dead/
             # invalid lanes cost only their table-gather lane, which is
             # cheaper than compacting them out at full width.

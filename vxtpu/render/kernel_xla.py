@@ -1,8 +1,8 @@
 """Batched XLA march: all rays advance in lock-step under masks.
 
 The reference's OpenCL kernel runs one divergent loop per pixel work-item
-(SURVEY.md §4.3); a TPU has no per-lane control flow, so divergence is
-rebuilt as *masking*: every ray carries a ``done`` flag, a chunked
+(SURVEY.md §4.3); here divergence is rebuilt as *masking* over the whole
+ray batch: every ray carries a ``done`` flag, a chunked
 ``while_loop`` keeps iterating until all rays in the batch are done, and
 finished rays simply stop changing state. Empty space is skipped with the
 occupancy pyramid (world/pyramid.py): a ray whose current coarse cell is
@@ -11,8 +11,9 @@ empty jumps straight to that cell's exit boundary instead of fine-stepping
 vectorizable arithmetic instead of pointer chasing.
 
 This path is pure jnp/lax (no Pallas): XLA's gather handles the occupancy
-fetches. It is both the first TPU production path and the mid-level parity
-rung between the per-ray oracle and the Pallas kernel.
+fetches. It is the parity rung between the per-ray oracle and the Triton
+march (render/kernel_triton.py), which runs the same distance-field jump
+rule per ray and is the default on the GPU.
 """
 
 from __future__ import annotations

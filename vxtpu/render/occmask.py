@@ -1,6 +1,5 @@
 """Occupancy-grid sample skipping for the differentiable soft renderer —
-the SURVEY §8 / PAPERS P:5,P:9 occupancy-grid-NeRF pattern (VERDICT r3
-next-#5b): most of config 4/5's uniform samples land in provably empty
+the PAPERS P:5,P:9 occupancy-grid-NeRF pattern: most of config 4/5's uniform samples land in provably empty
 space; a coarse occupancy MASK makes that emptiness part of the model so
 the sampler may skip it EXACTLY.
 
@@ -77,9 +76,8 @@ def mask_at(mask: jax.Array, scale: int, p: jax.Array) -> jax.Array:
 
 def mask_distance_field(mask: jax.Array) -> jax.Array:
     """Flat distance field of the mask grid. Precompute this ONCE per
-    mask refresh and pass it to mask_segment_bounds: building it inside
-    the train step costs seconds at 512^3 on dispatch-bound endpoints
-    (measured in tools/probe_r4_c512_out.json)."""
+    mask refresh and pass it to mask_segment_bounds rather than building
+    it inside every train step."""
     md = tuple(int(x) for x in mask.shape)
     return build_distance_field(mask.astype(jnp.uint8),
                                 cap=max(md)).reshape(-1)

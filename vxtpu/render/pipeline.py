@@ -1,9 +1,9 @@
 """March-implementation-agnostic render pipeline: primary march -> shadow
-marches -> shade -> image. The TPU analog of the reference's per-frame
+marches -> shade -> image. The analog of the reference's per-frame
 ``CLCaster::compute()`` dispatch (SURVEY.md §4.2), except the "kernel" is a
 composition of pure functions and XLA fuses the lot.
 
-Every march kernel (oracle / XLA / Pallas) plugs in through the same
+Every march kernel (oracle / Triton / XLA) plugs in through the same
 ``march(o, d, t_max=None) -> HitRecord`` closure, so shadows and shading are
 structurally identical across implementations — parity tests then isolate
 the march itself.

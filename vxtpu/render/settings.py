@@ -11,43 +11,6 @@ import dataclasses
 
 
 @dataclasses.dataclass(frozen=True)
-class MarchTuning:
-    """Performance knobs for the flagship Pallas march kernel
-    (render/kernel_pallas_v2). Pure performance — every field is
-    parity-locked as a semantics no-op in tests/test_pallas_v2.py.
-
-    Defaults encode the BENCHED flagship configuration (the fastest
-    measured one: tools/probe_r4_tune_out.json): split 2x256-row Morton
-    windows (46.2 ms march / 44.8 Mrays/s at the flagship, vs 53.8 for
-    2x512), 32x32 image-block tiles, 2x loop unroll, local same-cell
-    advance. Reproducing
-    the headline bench needs no overrides anywhere (VERDICT r3 weak #5/#6:
-    tuning flows through the config system, not env vars).
-    """
-
-    window: int = 512
-    unroll: int = 2
-    split_window: bool = True
-    split_matmul2: bool = False
-    local_advance: bool = True
-    sublane_windows: bool = False
-    block: tuple[int, int] | None = (32, 32)
-    # round-5 fetch reformulation, MEASURED AND REJECTED for the march
-    # (kept for probes): the 3-D one-hot build + matmul-reduce extraction
-    # wins in isolation (2.37 -> 1.92 us/iter, tools/probe_r5_fetch*_out)
-    # but LOSES in the real kernel (tools/probe_r5_march_out.json: 46.5 ms
-    # r4 form vs 98-100 ms v4, 61 ms v4b hybrid at the flagship) — Mosaic
-    # overlaps the r4 form's eight small independent column chains with
-    # the march body, while the monolithic 3-D ops serialize. Parity-
-    # locked equal (v4_parity: 0 mismatches on device).
-    fetch_v4: bool = False
-    # recompute the split-window bases every N-th loop iteration (stale
-    # bases between recomputes: out-of-window rays stall a round instead;
-    # 1 = every iteration, the r4 behavior)
-    base_every: int = 1
-
-
-@dataclasses.dataclass(frozen=True)
 class RenderSettings:
     """Hashable — used as a static argnum / closed over at trace time.
 
@@ -66,8 +29,6 @@ class RenderSettings:
     specular_exp / specular_k: Blinn-Phong parameters.
     fog_density: exp fog coefficient (per world unit of ray distance).
     sky_top / sky_horizon: miss-shade gradient endpoints (RGB).
-    tuning:      MarchTuning performance knobs for the Pallas flagship
-                 kernel (defaults = the benched configuration).
     """
 
     shading: str = "lambert"
@@ -82,7 +43,6 @@ class RenderSettings:
     fog_density: float = 0.004
     sky_top: tuple[float, float, float] = (0.35, 0.55, 0.85)
     sky_horizon: tuple[float, float, float] = (0.80, 0.88, 0.95)
-    tuning: MarchTuning = MarchTuning()
 
     def resolve_max_steps(self, dims: tuple[int, int, int]) -> int:
         if self.max_steps is not None:

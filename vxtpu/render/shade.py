@@ -1,7 +1,7 @@
 """Shading: everything after the march hit — face-normal lighting, shadows,
-fog, sky. The TPU-native rebuild of the tail of the reference's OpenCL kernel
+fog, sky. The rebuild of the tail of the reference's OpenCL kernel
 (SURVEY.md §4.3: normal from step mask, diffuse+specular per light, shadow
-ray, fog mix, sky on miss), expressed as pure batched VPU math over the
+ray, fog mix, sky on miss), expressed as pure batched elementwise math over the
 HitRecord so every march implementation shades identically.
 """
 
@@ -75,8 +75,8 @@ def shade(rec: HitRecord, o, d, albedo_src, dims, lights: Lights,
           material_ids=None) -> jax.Array:
     """Full shading dispatch: HitRecord [N] -> rgb [N,3] in [0,1].
 
-    albedo_src: world.grid.Albedo (1D-gather color source — never an [N,3]
-    table, which TPU lane-pads 42x).
+    albedo_src: world.grid.Albedo (1D-gather color source, one plane per
+    channel).
     atlas: optional world.atlas.TextureAtlas — when given, the hit color
     comes from the face texture (sampled at the hit point; the reference
     sampled its atlas image2d the same way, SURVEY.md §3 C17) instead of

@@ -64,7 +64,7 @@ def save_checkpoint(path: str, soft: SoftGrid, cam: Camera, step: int,
 
 def _migrate_rgb_layout(rgb):
     """SoftGrid.rgb_raw moved from [X,Y,Z,3] to channel-major [3,X,Y,Z]
-    (TPU minor-dim tile padding — see render/soft.SoftGrid). Migrate old
+    (see render/soft.SoftGrid). Migrate old
     checkpoints transparently; reject ambiguous shapes loudly."""
     if rgb.ndim == 4 and rgb.shape[0] == 3 and rgb.shape[-1] != 3:
         return rgb

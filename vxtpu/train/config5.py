@@ -2,10 +2,10 @@
 whose frames are rendered with rays SHARDED over the device mesh while
 camera-pose + voxel gradients descend PER FRAME.
 
-Composition (the wiring VERDICT r1 flagged as missing):
+Composition:
   app/schedule.py orbit path      -> the animated true camera
   engine/sharding.py              -> sharded target render + sharded
-                                     train step (grads psum'd over ICI)
+                                     train step (grads psum'd over the mesh)
   train/checkpoint.py             -> periodic save + --resume
   obs/metrics.py MetricsSink      -> per-frame loss/psnr/rays-per-sec
 
@@ -94,7 +94,7 @@ def run_config5(cfg: Config5, settings: RenderSettings,
     truth = SoftGrid.from_hard(truth_grid, sigma_solid=cfg.sigma_solid)
     # lit soft mode: targets AND optimization renders share the same light,
     # so config 5's scene resembles the hard ladder's look (configs 2-3)
-    # instead of a flat-color proxy (VERDICT r2 missing #6)
+    # instead of a flat-color proxy
     from vxtpu.world.lights import Lights
 
     lights = (Lights.single((0.2 * X, -0.3 * Y, 1.4 * Z), intensity=2.0)
@@ -112,10 +112,9 @@ def run_config5(cfg: Config5, settings: RenderSettings,
         if "cam_off" in extra:
             cam_off = extra["cam_off"]
 
-    # bucketed psum only pays when there is an ICI collective to overlap
-    # with backward compute; on a single-device mesh the psum is degenerate
-    # and bucketing is pure overhead (measured +34% step time,
-    # tools/bench_details.json train_step_b1 vs b4) — collapse to 1 bucket.
+    # bucketed psum only pays when there is a collective to overlap with
+    # backward compute; on a single-device mesh the psum is degenerate and
+    # bucketing is pure overhead — collapse to 1 bucket.
     buckets = cfg.grad_buckets if mesh.devices.size > 1 else 1
     init_fn, step_fn = make_sharded_train_step(
         settings, cfg.num_samples, mesh, lr=cfg.lr, cam_lr=cfg.cam_lr,
@@ -123,15 +122,19 @@ def run_config5(cfg: Config5, settings: RenderSettings,
         lights=lights, use_custom_vjp=cfg.use_custom_vjp,
     )
 
+    # one compiled program per frame render (soft grid and camera are
+    # arguments, so every frame reuses it)
+    render = jax.jit(lambda s, c: render_soft_image_sharded(
+        s, c, settings, cfg.height, cfg.width, cfg.num_samples, mesh,
+        lights=lights))
+
     losses, psnrs = [], []
     opt_state = None
     cam_est = None
     for f in range(start_frame, cfg.frames):
         t = jnp.float32(f / cfg.fps)
         cam_true = cam_path(t)
-        target = render_soft_image_sharded(
-            truth, cam_true, settings, cfg.height, cfg.width,
-            cfg.num_samples, mesh, lights=lights).reshape(-1, 3)
+        target = render(truth, cam_true).reshape(-1, 3)
 
         # per-frame pose estimate: true pose + the current pose error
         # (carried across frames so the optimizer's corrections persist)
@@ -160,9 +163,7 @@ def run_config5(cfg: Config5, settings: RenderSettings,
             raise FloatingPointError(f"config5: non-finite loss at frame {f}")
         losses.append(lv)
 
-        pred = render_soft_image_sharded(
-            soft, cam_true, settings, cfg.height, cfg.width,
-            cfg.num_samples, mesh, lights=lights)
+        pred = render(soft, cam_true)
         p = float(psnr(pred, target.reshape(cfg.height, cfg.width, 3)))
         psnrs.append(p)
         sink.emit(frame=f, loss=lv, psnr=p,

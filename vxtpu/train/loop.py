@@ -3,8 +3,8 @@ colors) and optionally the camera pose to target images.
 
 This is new capability relative to the reference (which has no training,
 SURVEY.md §1) but normative for the rebuild (BASELINE.json configs 4-5).
-Idiomatic TPU shape: one jitted ``step`` closed over static config, scanned
-from Python; donated carry so grid + optimizer state stay HBM-resident.
+One jitted ``step`` closed over static config, driven from Python; the
+carry is donated so grid + optimizer state stay resident in device memory.
 
 Two entry points:
   fit_soft        — single target view (+ optional camera-pose refinement).
@@ -55,18 +55,9 @@ class TrainConfig:
     mask_scale: int = 4
     mask_refresh: int = 50
     mask_tau: float = 0.01
-    # Pallas field-sampling path (render/soft_pallas.py): train the scene
-    # in fine-voxel Morton layout with the kernel gather/scatter pair
-    # (window default = the measured-best 128: tools/probe_r5_train_out
-    # w128 878 ms vs w64 1039 ms at the judged shape) —
-    # the contract's custom-VJP backward kernel (SURVEY.md §2 L0). The
-    # TV regularizer becomes the Morton even-parity variant
-    # (train/loss.tv_loss_morton). Requires cubic power-of-two dims.
-    field_kernel: bool = False
-    field_window: int = 128
 
 
-def _loss_fn(soft: SoftGrid, cam: Camera, o, d, target, hw,
+def loss_fn(soft: SoftGrid, cam: Camera, o, d, target, hw,
              settings: RenderSettings, cfg: TrainConfig, mask=None,
              bounds=None):
     """target is always flat [N,3]. When optimizing the camera the rays are
@@ -76,28 +67,6 @@ def _loss_fn(soft: SoftGrid, cam: Camera, o, d, target, hw,
     if cfg.optimize_camera:
         o, d = generate_rays(cam, *hw)
 
-    if cfg.field_kernel:
-        from vxtpu.render.soft_pallas import render_soft_rays_pallas
-        from vxtpu.train.loss import tv_loss_morton
-
-        # coherent image tiles whenever the ray set is scanline-complete
-        # (full frames, or V stacked views treated as a (V*H, W) image);
-        # random-ray minibatches fall back to flat tiles
-        n = o.shape[0]
-        ishape = ((n // hw[1], hw[1])
-                  if hw and n % hw[1] == 0 and n >= hw[1] else None)
-        pred = render_soft_rays_pallas(soft, o, d, settings,
-                                       cfg.num_samples, mask=mask,
-                                       mask_scale=cfg.mask_scale,
-                                       seg_bounds=bounds,
-                                       window=cfg.field_window,
-                                       image_shape=ishape)
-        loss = mse(pred, target)
-        if cfg.tv_sigma:
-            loss = loss + cfg.tv_sigma * tv_loss_morton(soft.sigma_tab)
-        if cfg.tv_rgb:
-            loss = loss + cfg.tv_rgb * tv_loss_morton(soft.rgb_tab)
-        return loss
     if cfg.use_custom_vjp:
         from vxtpu.render.vjp import render_soft_rays_fast
 
@@ -173,6 +142,30 @@ def make_optimizer(cfg: TrainConfig):
     return optax.adam(cfg.lr)
 
 
+def make_train_step(cam: Camera, hw, settings: RenderSettings,
+                    cfg: TrainConfig):
+    """The jitted optimizer step fit_soft runs:
+    step(params, opt_state, o, d, target[, mask, t0, t1])
+        -> (params, opt_state, loss)
+    with params = soft, or (soft, cam) when cfg.optimize_camera. params and
+    opt_state are donated."""
+    opt = make_optimizer(cfg)
+
+    @functools.partial(jax.jit, donate_argnums=(0, 1))
+    def step(params, opt_state, o_b, d_b, tgt_b, *mask_a):
+        def lf(p):
+            s, c = p if cfg.optimize_camera else (p, cam)
+            return loss_fn(s, c, o_b, d_b, tgt_b, hw, settings, cfg,
+                            mask_a[0] if mask_a else None,
+                            (mask_a[1], mask_a[2]) if mask_a else None)
+        loss, grads = jax.value_and_grad(lf)(params)
+        updates, opt_state = opt.update(grads, opt_state, params)
+        params = optax.apply_updates(params, updates)
+        return params, opt_state, loss
+
+    return step
+
+
 def _fit_rays(soft: SoftGrid, cam: Camera, o, d, target, hw,
               settings: RenderSettings, cfg: TrainConfig,
               log_fn: Callable[[int, float], None] | None = None,
@@ -182,26 +175,10 @@ def _fit_rays(soft: SoftGrid, cam: Camera, o, d, target, hw,
     if cfg.optimize_camera and minibatched:
         raise ValueError("optimize_camera requires full-image steps (ray_batch=0)")
 
-    if cfg.field_kernel:
-        from vxtpu.render.soft_pallas import MortonSoftGrid
-
-        soft = MortonSoftGrid.from_soft(soft)
     params = (soft, cam) if cfg.optimize_camera else soft
-    opt = make_optimizer(cfg)
     if opt_state is None:
-        opt_state = opt.init(params)
-
-    @functools.partial(jax.jit, donate_argnums=(0, 1))
-    def step(params, opt_state, o_b, d_b, tgt_b, *mask_a):
-        def lf(p):
-            s, c = p if cfg.optimize_camera else (p, cam)
-            return _loss_fn(s, c, o_b, d_b, tgt_b, (H, W), settings, cfg,
-                            mask_a[0] if mask_a else None,
-                            (mask_a[1], mask_a[2]) if mask_a else None)
-        loss, grads = jax.value_and_grad(lf)(params)
-        updates, opt_state = opt.update(grads, opt_state, params)
-        params = optax.apply_updates(params, updates)
-        return params, opt_state, loss
+        opt_state = make_optimizer(cfg).init(params)
+    step = make_train_step(cam, hw, settings, cfg)
 
     mask = mask_df = None
     bounds_fn = None
@@ -212,11 +189,9 @@ def _fit_rays(soft: SoftGrid, cam: Camera, o, d, target, hw,
 
         mask = mask_all_ones(soft.dims, cfg.mask_scale)
         mask_df = mask_distance_field(mask)
-        # bounds are a SEPARATE jitted program from the step, computed
-        # per iteration from the current camera/rays (fusing the bounds
-        # march into the train program trips a repeat-execution backend
-        # fault on the bench endpoint; it also avoids re-marching per
-        # grad evaluation)
+        # bounds are a separate jitted program from the step, computed
+        # per iteration from the current camera/rays, so the bounds march
+        # is not repeated per gradient evaluation
         bounds_fn = jax.jit(functools.partial(mask_segment_bounds,
                                               scale=cfg.mask_scale))
     losses = []
@@ -229,8 +204,6 @@ def _fit_rays(soft: SoftGrid, cam: Camera, o, d, target, hw,
                                               occupancy_mask_from_soft)
 
             cur = params[0] if cfg.optimize_camera else params
-            if cfg.field_kernel:
-                cur = cur.to_soft()
             mask = occupancy_mask_from_soft(cur, cfg.mask_scale,
                                             tau=cfg.mask_tau, dilate=1)
             mask_df = mask_distance_field(mask)
@@ -268,6 +241,4 @@ def _fit_rays(soft: SoftGrid, cam: Camera, o, d, target, hw,
         soft_out, cam_out = params
     else:
         soft_out, cam_out = params, cam
-    if cfg.field_kernel:
-        soft_out = soft_out.to_soft()
     return soft_out, cam_out, losses, opt_state

@@ -24,22 +24,3 @@ def tv_loss(vol: jnp.ndarray) -> jnp.ndarray:
     dz = jnp.diff(vol, axis=-1)
     return (jnp.mean(dx ** 2) + jnp.mean(dy ** 2) + jnp.mean(dz ** 2)) / 3.0
 
-
-def tv_loss_morton(table: jnp.ndarray) -> jnp.ndarray:
-    """TV-style smoothness prior evaluated directly on a fine-voxel Morton
-    table [rows, 128] (or [C, rows, 128]) WITHOUT the ~1.4 s/step
-    grid-relayout a full tv_loss would need at 512^3 on this endpoint.
-
-    Uses the even-parity neighbor pairs only: in Morton order, the
-    (x, x+1) neighbor with x even differs in lane bit 0 (bit 1 for y,
-    bit 2 for z), so half of all axis-neighbor pairs are adjacent lanes of
-    the SAME table word group — a pure reshape, no gather. Half the pairs
-    of tv_loss at twice the weight is the same smoothness pressure in
-    expectation (documented difference: this is a regularizer variant for
-    the Morton training path, not a parity-equal reimplementation)."""
-    t = table.reshape(table.shape[:-2] + (table.shape[-2], 16, 2, 2, 2))
-    dx = t[..., 1] - t[..., 0]                       # lane bit 0 = x
-    dy = t[..., 1, :] - t[..., 0, :]                 # lane bit 1 = y
-    dz = t[..., 1, :, :] - t[..., 0, :, :]           # lane bit 2 = z
-    return 2.0 * (jnp.mean(dx ** 2) + jnp.mean(dy ** 2)
-                  + jnp.mean(dz ** 2)) / 3.0

@@ -10,6 +10,9 @@ and the Pallas kernel compute bit-identical quantities.
 from __future__ import annotations
 
 import dataclasses
+import os
+import struct
+import zlib
 from typing import Any, Callable, TypeVar
 
 import jax
@@ -76,10 +79,31 @@ def to_uint8_image(img: jax.Array | np.ndarray) -> np.ndarray:
     return (np.clip(arr, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
 
 
-def save_png(path: str, img: jax.Array | np.ndarray) -> None:
-    from PIL import Image
+def encode_png(rgb: np.ndarray) -> bytes:
+    """uint8 [H, W, 3] -> PNG file bytes (8-bit RGB, no filtering), with
+    nothing but the standard library."""
+    rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
+    if rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"expected an [H, W, 3] image, got {rgb.shape}")
+    h, w, _ = rgb.shape
+    # each scanline is prefixed with filter type 0 (none)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)],
+                         axis=1).tobytes()
 
-    Image.fromarray(to_uint8_image(img)).save(path)
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def save_png(path: str, img: jax.Array | np.ndarray) -> None:
+    """Write an [H, W, 3] float image in [0, 1] as an RGB PNG."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(encode_png(to_uint8_image(img)))
 
 
 def cdiv(a: int, b: int) -> int:
@@ -91,6 +115,6 @@ def round_up(a: int, b: int) -> int:
 
 
 def tree_bytes(tree: Any) -> int:
-    """Total bytes of all array leaves (HBM-fit checks, engine/platform)."""
+    """Total bytes of all array leaves (memory-fit checks, engine/platform)."""
     leaves = jax.tree_util.tree_leaves(tree)
     return sum(l.size * l.dtype.itemsize for l in leaves if hasattr(l, "dtype"))

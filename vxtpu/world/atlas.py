@@ -1,10 +1,9 @@
 """Texture atlas: per-material face textures sampled at the hit point —
-the TPU-native rebuild of the reference's texture assets (SURVEY.md §3 C17:
+the rebuild of the reference's texture assets (SURVEY.md §3 C17:
 voxel face textures sampled in the OpenCL kernel as an image2d).
 
-Design for TPU gathers: one [M * T * T] flat plane PER CHANNEL (the same
-layout rule as world.grid.Albedo — a materialized [N,3] gather table would
-be lane-padded 3->128). Sampling is nearest-texel: the face axis comes from
+Layout for gathers: one [M * T * T] flat plane PER CHANNEL (the same
+layout rule as world.grid.Albedo). Sampling is nearest-texel: the face axis comes from
 the hit normal, the in-face UV from the fractional hit-point coordinates on
 the two tangent axes, so textures are world-anchored (no per-face UV
 tables) and every ray costs exactly three 1D gathers.

@@ -1,7 +1,7 @@
 """Chebyshev distance-field acceleration structure ("proximity clouds").
 
 The reference accelerates its march with an SVO descent (SURVEY.md §3 C3);
-the first TPU rebuild used a dense occupancy pyramid (world/pyramid.py).
+the first rebuild used a dense occupancy pyramid (world/pyramid.py).
 This module is the faster second-generation structure: a single uint8 field
 
     dfield[v] = 0                         if voxel v is solid

@@ -1,4 +1,4 @@
-"""Voxel world as arrays (the TPU-native replacement for the reference's
+"""Voxel world as arrays (the replacement for the reference's
 ``map/Old_Map`` dense ``char*`` grid and ``map/Octree`` SVO — SURVEY.md §3
 C2/C3). The grid is a pytree of device arrays, not an object graph: occupancy
 (material id), optional per-voxel RGB, optional density for the soft
@@ -57,9 +57,8 @@ class VoxelGrid:
     def albedo_flat(self) -> jax.Array:
         """[X*Y*Z, 3] float32 albedo table for gather-by-linear-index.
 
-        WARNING (TPU layout): a materialized [N, 3] array gets its lane dim
-        padded 3 -> 128 on TPU (a 42x HBM bloat — fatal at 512^3). Only use
-        this on small grids (soft-grid init); hot paths use ``albedo()``.
+        Only used on small grids (soft-grid init); hot paths use
+        ``albedo()``, which gathers one plane per channel.
         """
         if self.rgb is not None:
             return self.rgb.reshape(-1, 3)
@@ -78,7 +77,7 @@ class VoxelGrid:
 
 @pytree_dataclass
 class Albedo:
-    """Per-hit-voxel color source, laid out so TPU gathers stay 1D.
+    """Per-hit-voxel color source, laid out so gathers stay 1D.
 
     Two modes (exactly one is set):
       * palette: ``ids`` uint8 [X*Y*Z] material ids + ``palette`` [M,3] —

@@ -2,7 +2,7 @@
 
 The reference accelerates its march with a 64-bit-descriptor sparse voxel
 octree (SURVEY.md §3 C3, ``Octree::Generate`` / ``GetVoxel``). Pointer-chasing
-a descriptor tree is exactly what a TPU cannot vectorize, so the *capability*
+a descriptor tree does not vectorize over a ray batch, so the *capability*
 ("hierarchical octree skip", BASELINE.json) is rebuilt as a dense pyramid:
 level k is the factor-2^k max-pool of the occupancy — level-k cell (i,j,k)
 is nonzero iff ANY fine voxel inside its 2^k-cube is occupied. Lookups are
